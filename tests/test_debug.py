@@ -72,13 +72,16 @@ def test_named_scopes_in_lowered_encode_scan():
 
 
 def test_profile_tool_writes_trace(tmp_path):
-    """tools/profile.py records a JAX profiler trace end-to-end."""
+    """tools/profile.py records a JAX profiler trace end-to-end (its
+    record step, on the CPU: the command itself requires a GPU)."""
     import subprocess
     import sys
 
     out = tmp_path / "trace"
     r = subprocess.run(
-        [sys.executable, "-m", "theora_tpu.tools.profile",
+        [sys.executable, "-c",
+         "import sys; from theora_tpu.tools import profile; "
+         "sys.exit(profile.record(profile.parse_args(sys.argv[1:])))",
          "--size", "64x48", "--frames", "2", "--out", str(out)],
         capture_output=True, text=True, timeout=600,
     )

@@ -1,6 +1,5 @@
 """Corrupt-stream differential conformance (a small always-on slice of
-the crosscheck --fuzz campaign; the full 500+-trial record lives in
-ROUND_NOTES/BASELINE round 4).
+the crosscheck --fuzz campaign, whose full runs are 500+ trials).
 
 Mutated data packets (truncations, bit flips, zeroed ranges, random
 tails) must produce the SAME per-packet accept/dup/reject decision and
@@ -66,8 +65,8 @@ def test_mutated_headers_match_reference(tmp_path):
     sequence damage) must yield the IDENTICAL th_decode_headerin return
     code sequence, the identical alloc decision, and byte-identical
     decoded output vs the reference (decinfo.c:182-272,
-    dequant.c:24-144, huffdec.c:193-240).  Full 300+-trial record in
-    ROUND_NOTES round 5."""
+    dequant.c:24-144, huffdec.c:193-240); full crosscheck --hdr runs
+    are 300+ trials."""
     if not ensure_ref_oracle():
         pytest.skip("reference oracle unavailable")
     import subprocess

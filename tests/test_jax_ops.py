@@ -1,4 +1,4 @@
-"""JAX TPU op twins must be bit-exact vs the numpy reference ops (which are
+"""JAX device op twins must be bit-exact vs the numpy reference ops (which are
 themselves validated against the C reference)."""
 import numpy as np
 import pytest
@@ -93,33 +93,6 @@ def test_tpu_decoder_pipeline_bit_exact():
         assert np.array_equal(mine, ref[i]), f"frame {i}"
 
 
-def test_pallas_kernels_bit_exact():
-    """SoA Pallas kernels (interpreter mode on CPU) must match the numpy
-    reference ops bit-for-bit; on-chip parity + speed is covered by
-    BASELINE.md (pallas iDCT measured ~17% over the XLA twin)."""
-    from theora_tpu.ops import pallas_kernels as pk
-
-    rng = np.random.RandomState(3)
-    x = rng.randint(-8100, 8101, size=(600, 8, 8)).astype(np.int32)
-    ref = idct_np.idct8x8_batch(x)
-    soa = pk.blocks_to_soa(jnp.asarray(x))
-    out = pk.soa_to_blocks(np.asarray(pk.idct8x8_soa(soa, interpret=True)))
-    assert np.array_equal(out, ref)
-
-    res = rng.randint(-255, 256, size=(600, 8, 8)).astype(np.int32)
-    dq = rng.randint(8, 4097, size=(64,)).astype(np.int64)
-    dct = fdct_np.fdct8x8_batch(res.astype(np.int64))
-    qref = fdct_np.quantize_batch(dct, dq)
-    q = np.asarray(
-        pk.fdct_quantize_soa(
-            pk.blocks_to_soa(jnp.asarray(res)),
-            jnp.asarray(dq.astype(np.int32)),
-            interpret=True,
-        )
-    ).T
-    assert np.array_equal(q, qref)
-
-
 def test_fdct_jax_batched_leading_dims():
     """fdct8x8 must be correct with extra leading batch dims (the batched
     multi-frame path used by bench.py / parallel.gop): the systematic-
@@ -161,10 +134,10 @@ def test_tpu_batch_intra_encoder_byte_identical():
     host.keyframe_freq = 1
     host.flush_headers()
     hp = [host.encode_frame(fr).data for fr in frames]
-    tpu = TpuBatchIntraEncoder(info)
-    tpu.flush_headers()
-    tp = [p.data for p in tpu.encode(frames)]
-    assert hp == tp
+    dev = TpuBatchIntraEncoder(info)
+    dev.flush_headers()
+    dp = [p.data for p in dev.encode(frames)]
+    assert hp == dp
 
 
 def test_tpu_batch_decoder_bit_exact():

@@ -157,6 +157,22 @@ def test_mesh_byte_identity():
     assert [p.data for p in pk] == [p.data for p in seq]
 
 
+@pytest.mark.parametrize("nd,fragax", [(1, 1), (4, 2), (8, 4), (8, 8)])
+def test_rate_psum_counts_each_gop_once(nd, fragax):
+    """The CBR collective sums the per-GOP bit counts once, whatever the
+    fragment axis: the counts are sharded over "gop" and replicated over
+    "frag"."""
+    import jax
+
+    if len(jax.devices()) < nd:
+        pytest.skip(f"needs {nd} virtual devices")
+    from theora_tpu.parallel.gop import make_mesh, rate_psum
+
+    mesh = make_mesh(nd, frag_axis=fragax)
+    bits = np.arange(1, mesh.shape["gop"] * 3 + 1, dtype=np.int32) * 1000
+    assert rate_psum(mesh, bits) == int(bits.sum())
+
+
 def test_mesh_arbitrary_rate_window_and_auto_keyframes():
     """CBR windows that do NOT divide the gop axis (dispatch batches are
     clipped at window boundaries) and scene-cut-driven uneven GOPs stay
@@ -258,6 +274,26 @@ def test_device_speed_levels():
         outs[lvl] = sum(len(p.data) for p in pkts[3:])
     # no-MC cannot beat full search on moving content
     assert outs[4] >= outs[2]
+
+
+def test_mode_decision_without_native_library(monkeypatch):
+    """When the native library cannot load, the mode decision falls back
+    to the Python walk, with the same packets as the C++ walk."""
+    import theora_tpu.native as native
+
+    frames = _moving_frames(64, 48, 0, 5, 11)
+    info = TheoraInfo(
+        frame_width=64, frame_height=48, pic_width=64, pic_height=48,
+        quality=40,
+    )
+    want = TpuGopEncoder(info, qi=40).encode_clip(frames, keyframe_freq=8)
+
+    def unavailable(*args):
+        raise RuntimeError("native entropy library unavailable")
+
+    monkeypatch.setattr(native, "mode_decide_native", unavailable)
+    got = TpuGopEncoder(info, qi=40).encode_clip(frames, keyframe_freq=8)
+    assert [p.data for p in got] == [p.data for p in want]
 
 
 def test_encode_clip_granulepos():

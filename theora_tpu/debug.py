@@ -1,4 +1,4 @@
-"""Debug + tracing utilities -- the TPU analogues of the reference's
+"""Debug + tracing utilities -- the device-tier analogues of the reference's
 auxiliary subsystems (SURVEY.md section 5):
 
 - the reference ships sanitizer/valgrind CI builds (configure.ac

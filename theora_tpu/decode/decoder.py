@@ -2,8 +2,8 @@
 
 Host tier: packet parsing, token streams, DC prediction (numpy).
 Compute tier: batched iDCT / reconstruction / loop filter; the numpy ops in
-theora_tpu/ops are the bit-exactness reference, with JAX/Pallas twins for
-TPU execution (theora_tpu/ops/*_jax.py).
+theora_tpu/ops are the bit-exactness reference, with JAX twins for
+device execution (theora_tpu/ops/*_jax.py).
 
 Frames are stored in bitstream orientation (row 0 = display bottom) in
 padded planes; see theora_tpu/geometry.py. Reference behavior:

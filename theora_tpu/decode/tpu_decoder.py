@@ -1,4 +1,4 @@
-"""TPU-pipeline decoder: reference planes stay resident on device; per
+"""Per-frame device decoder: reference planes stay resident on device; per
 frame, host entropy produces dense per-fragment arrays and one jitted
 program per plane performs dequant + iDCT + MC + reconstruction + loop
 filter + border fill.
@@ -28,7 +28,7 @@ from theora_tpu.pipeline import fill_borders
 @functools.partial(
     jax.jit, static_argnames=("nv", "nh", "pad_y", "pad_x", "do_filter")
 )
-def decode_plane_tpu(
+def decode_plane_device(
     prev_plane,
     gold_plane,
     qz,          # [nfrags, 64] int32 zig-zag quantized
@@ -43,8 +43,8 @@ def decode_plane_tpu(
     nv, nh, pad_y, pad_x, do_filter,
 ):
     residual = tj.dequantize_idct(qz, deq_rows, dc, dc_quant, dc_only)
-    # MC via masked shifts over block neighborhoods (ops/mc_jax.py) --
-    # element gathers and scatters run ~100x slower on TPU.
+    # MC via masked shifts over block neighborhoods (ops/mc_jax.py), not
+    # per-element gathers and scatters.
     nb_p = mc.block_neighborhoods(prev_plane, nv, nh, pad_y, pad_x)
     nb_g = mc.block_neighborhoods(gold_plane, nv, nh, pad_y, pad_x)
     nb = jnp.where((refsel == 2)[:, None, None], nb_g, nb_p)
@@ -188,7 +188,7 @@ class TpuDecoder(Decoder):
             my2 = _MVMAP2[qpy][dy + 31]
             use2 = ((mx2 != 0) | (my2 != 0)) & (refsel[sl] != 0)
             dcq = dc_quant[sl]
-            plane = decode_plane_tpu(
+            plane = decode_plane_device(
                 self._dev[prev_i][pli],
                 self._dev[gold_i][pli],
                 jnp.asarray(qz[sl]),

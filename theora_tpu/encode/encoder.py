@@ -128,8 +128,7 @@ class Encoder:
         # Reference-style coupled mode/skip rollback (analyze.c:859-882,
         # 933-956): implemented in _coupled_transform_skip, default OFF --
         # measured RD-negative in this architecture at every lambda tried
-        # (the aggressive NOMV skip above already harvests the economy;
-        # see ROUND_NOTES).
+        # (the aggressive NOMV skip above already harvests the economy).
         self.coupled_skip = False
         # Viterbi trellis tokenizer with exact Huffman bit costs
         # (tokenize.c:457-744 analogue); supersedes rd_quant on
@@ -153,7 +152,7 @@ class Encoder:
         self.collect = None
         # SATD + fitted-table mode decision (modedec analogue; requires
         # generated modedec_tables).  Off by default -- closed question,
-        # round 3 (full bisection in ROUND_NOTES): after fixing the
+        # after a full bisection: after fixing the
         # missing skip coupling, a 16x distortion-domain bug, the SATD
         # bin blindness below 512 (log-spaced edges now), the greedy
         # chain-seeding failure (multi-level walks, cheapest full-price
@@ -168,7 +167,7 @@ class Encoder:
         # Rate-aggressiveness multiplier on the mode-decision lambda
         # (the reference's OC_BIT_SCALE convention makes its mode costs
         # ~16x more rate-aggressive than our trellis-lambda units;
-        # swept empirically, see ROUND_NOTES round 3).
+        # swept empirically).
         self.mode_rd_rate_scale = 1.0
         # MV-bit discount levels tried when scoring MV-bearing modes
         # (chain-seeding value of the last-MV predictor): one greedy
@@ -210,7 +209,7 @@ class Encoder:
         # about as much as the trellis it tries to avoid (both are
         # 64-coefficient walks), so the exact path -- already cut from
         # ~2.1x to 1.5-1.8x of single-qi by the threaded native
-        # batches -- stays ahead; see ROUND_NOTES round 4.
+        # batches -- stays ahead.
         self.aq_estimate_margin: float | None = None
         # Lambda multiplier for the per-block qii R/D chooser.  1.0 =
         # the frame's trellis lambda (reference-coherent).  Swept round
@@ -1263,8 +1262,7 @@ class Encoder:
             self._block_qis_pack(bw, frag_qii, coded)
         # Entropy-free closed loop for keyframes too: without this stash
         # every keyframe re-decodes its own packed packet (the token
-        # re-decode alone is ~25% of all-intra encode time; VERDICT
-        # round 3, weak #1b).
+        # re-decode alone is ~25% of all-intra encode time on the host).
         from theora_tpu.constants import MODE_INTRA
 
         can_fast = (

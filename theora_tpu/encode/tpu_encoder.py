@@ -1,4 +1,4 @@
-"""TPU-batched intra (all-keyframe) encoder.
+"""Device-batched intra (all-keyframe) encoder.
 
 The device computes fDCT + round-to-nearest quantization for EVERY block
 of EVERY frame of a batch in one jitted dispatch (bit-exact integer
@@ -9,7 +9,7 @@ a pure-host encode, and the batch amortizes device dispatch and transfer
 across frames. This is the encode-side counterpart of TpuDecoder and the
 usable API over pipeline.intra_encode_core.
 
-All-keyframe batches are the natural TPU unit because frames become
+All-keyframe batches are the natural device unit because frames become
 fully independent (SURVEY §2.7); inter GOPs shard across hosts/processes
 instead (parallel/).
 """

@@ -3,7 +3,7 @@ maps, and the canonical bitstream traversal orders.
 
 The reference builds pointer-based maps at state init (state.c:123-332); here
 the same structure is precomputed once per (frame size, pixel format) as
-numpy index arrays, which later feed gather/scatter ops on TPU.
+numpy index arrays, which later feed gather/scatter ops on the device.
 
 Coordinate system: fragment row 0 is the *bitstream* bottom row (Theora frames
 are coded bottom-up). Planes are stored as arrays whose row 0 is bitstream row

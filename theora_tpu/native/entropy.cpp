@@ -1,6 +1,7 @@
 // Native host-side entropy codec for theora_tpu.
 //
-// This is the production tier for the bit-serial work the TPU cannot do:
+// This is the production tier for the bit-serial work the device tier
+// leaves to the host:
 // Huffman token decode/encode and bitstream pack/unpack. The structure
 // mirrors the Python host tier (theora_tpu/decode/tokens.py,
 // theora_tpu/encode/tokenize.py), which serves as its test oracle; both

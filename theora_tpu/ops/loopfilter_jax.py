@@ -1,10 +1,10 @@
-"""JAX/TPU port of the exact-order vectorized loop filter.
+"""JAX port of the exact-order vectorized loop filter.
 
 Same within-row phase decomposition as ops/loopfilter_vec.py (see its
 docstring for the derivation), extended to a fully BATCHED cross-row
-formulation: instead of a lax.scan over fragment rows (whose ~60 tiny
-ops per iteration cost ~0.3 ms each on TPU -- 25 ms/frame at 720p), the
-whole plane is filtered in three globally vectorized phases:
+formulation: instead of a lax.scan over fragment rows (~60 tiny ops
+per iteration, run once per fragment row), the whole plane is filtered
+in three globally vectorized phases:
 
   P1  all rows' interior horizontal filters (rows y0+1..y0+6)
   B   all rows' bottom-edge chains (writes rows y0+7, y0+8)
@@ -24,10 +24,10 @@ This ordering reproduces the scalar VP3 raster order exactly because:
   priorities at block corners are the same masked variants the within-
   row decomposition already encodes.
 
-TPU mapping notes: all column addressing is in blocked [.., W/8, 8]
+Device mapping notes: all column addressing is in blocked [.., W/8, 8]
 coordinates so every access is a static slice and every update lowers
-to dynamic-update-slice -- XLA's gather/scatter paths (the original
-`ecols`-indexed formulation) run ~2 orders of magnitude slower on TPU.
+to dynamic-update-slice, instead of the gathers and scatters of the
+original `ecols`-indexed formulation.
 The bounding-value table is evaluated in closed form
 (sign(R)*max(0, min(|R|, 2*limit-|R|)), identical by construction to
 build_bounding_values -- state.c:1036-1045) for the same reason.

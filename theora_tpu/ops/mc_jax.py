@@ -1,10 +1,8 @@
-"""MXU-friendly motion compensation primitives.
+"""Motion compensation primitives without per-fragment gathers.
 
-XLA lowers per-fragment dynamic indexing (`plane[ay+mvy, ax+mvx]`) to
-element gathers, which run at ~80 MB/s effective on TPU -- the decode
-and encode pixel pipelines were spending most of their device time
-there. These helpers reformulate both hot patterns as layout ops plus
-shifted-identity ("one-hot") matmuls, which ride the MXU instead:
+Per-fragment dynamic indexing (`plane[ay+mvy, ax+mvx]`) lowers to element
+gathers. These helpers reformulate the hot patterns as layout ops plus
+masked shifts over a small static window instead:
 
 - `block_neighborhoods`: the UMV-padded plane reorganized into one
   per-fragment neighborhood tensor [n, wy, wx] via static block-grid
@@ -12,14 +10,12 @@ shifted-identity ("one-hot") matmuls, which ride the MXU instead:
   range: +/-16 full-pel on full-resolution axes (mv in [-31,31] half-pel,
   state.c:901-928), halved per chroma decimation -- exactly the UMV
   padding, so the static shifts never leave the padded plane.
-- `mc_select`: per-fragment 8x8 extraction at a dynamic (dy, dx) offset
-  as R @ nb @ C with one-hot R/C in bfloat16 and f32 accumulation.
-  Exact: each row of R / column of C has a single 1, pixel values
-  <= 255 are exactly representable in bfloat16, and the f32 accumulator
-  sees at most one nonzero term per output -- no rounding anywhere.
+- `mc_select2`: two per-fragment 8x8 extractions at dynamic (dy, dx)
+  offsets, as separable masked shifts over the neighborhood (one select
+  per row offset, then one per column offset). Integer throughout, so
+  exact.
 - `blocks_to_plane`: the inverse of the block-grid view -- a reshape +
-  pad instead of a scatter (the write positions are a regular grid;
-  XLA's scatter path never notices).
+  pad instead of a scatter (the write positions are a regular grid).
 
 Bit-exact with the gather formulation (asserted in tests/test_jax_ops).
 """
@@ -72,7 +68,7 @@ def block_neighborhoods(plane, nv, nh, pad_y, pad_x):
 def mc_select2(nb, yo1, xo1, yo2, xo2, pad_y, pad_x):
     """Extract TWO 8x8 blocks per fragment from the neighborhood tensor
     at offsets (yo1, xo1) and (yo2, xo2) (full-pel ints in
-    [-base, base]), via masked shifts (separable: 2*shifts VPU passes
+    [-base, base]), via masked shifts (separable: 2*shifts elementwise passes
     instead of shifts^2; no gathers, no batched-tiny matmuls).
     Returns ([n,8,8], [n,8,8]) int32."""
     n_sy = window_shifts(pad_y)

@@ -1,6 +1,6 @@
 """Batched device motion estimation (JAX/XLA).
 
-TPU-native replacement for the reference's per-MB scalar search
+Batched replacement for the reference's per-MB scalar search
 (mcenc.c:268-548): every macroblock of every frame of a GOP is searched
 in one jitted dispatch.  Three stages, all integer and deterministic
 (ties break on a fixed candidate order, so results are identical on any
@@ -16,12 +16,10 @@ backend or mesh sharding):
      decode path state.c:846-957).
 
 Stages 2-3 are gather-free: XLA lowers per-MB dynamic indexing to
-element gathers that run ~100x slower than VPU passes on TPU (measured
-3.7 s/GOP for the old formulation at 720p), so each MB's search window
-is extracted from a static-shift neighborhood tensor by masked shifts
-(the ops/mc_jax.py discipline), and all candidate positions become
-static slices of that per-MB patch.  Compute for a 7-frame 720p batch
-drops to ~60 ms.
+element gathers, so each MB's search window is extracted from a
+static-shift neighborhood tensor by one-hot selection (the ops/mc_jax.py
+discipline), and all candidate positions become static slices of that
+per-MB patch.
 
 The search runs on the *original* (un-reconstructed) previous/golden
 frames, mirroring the reference's OC_FRAME_*_ORIG design
@@ -31,7 +29,7 @@ every frame depends only on source frames, never on the closed loop.
 `plan` fuses the whole per-GOP decision precompute -- search, zero-MV /
 golden / intra SADs, top-K shared candidate selection, and candidate
 SADs -- into ONE dispatch returning transfer-compact dtypes, so a GOP
-costs a single round trip over the host<->TPU link.
+costs a single round trip between host and device.
 """
 from __future__ import annotations
 
@@ -75,10 +73,9 @@ def _sumpool2(x):
 
 @functools.lru_cache(None)
 def _boxsum_mats(H, W, mb):
-    """Column/row box-sum matrices: box sums as two MXU matmuls
-    instead of a reshape-reduce whose mb-wide minor dims pay up to 16x
-    lane padding (measured 3.5x faster on the coarse ME scan, round-5
-    roofline).  f32 is exact here: every sum is an integer < 2^24."""
+    """Column/row box-sum matrices: box sums as two matmuls instead of
+    a reshape-reduce over mb-wide minor dims.  f32 is exact here: every
+    sum is an integer < 2^24."""
     cs = np.zeros((W, W // mb), np.float32)
     cs[np.arange(W), np.arange(W) // mb] = 1.0
     rs = np.zeros((H // mb, H), np.float32)
@@ -87,7 +84,8 @@ def _boxsum_mats(H, W, mb):
 
 
 def _box_mb(diff, mb):
-    """[F, H, W] -> [F, H//mb, W//mb] box sums (exact, via MXU)."""
+    """[F, H, W] -> [F, H//mb, W//mb] box sums (exact: HIGHEST keeps
+    the f32 operands out of reduced-precision matmul paths such as TF32)."""
     F, H, W = diff.shape
     rs, cs = _boxsum_mats(H, W, mb)
     P = jax.lax.Precision.HIGHEST
@@ -108,10 +106,8 @@ def _mb_neighborhoods(ref, nv, nh):
     Built band-major: overlapping 48-wide windows at stride 16 are three
     CONTIGUOUS reshapes (rows k..k+16*nv view as [nv, 16]) concatenated
     on a trailing axis, applied to rows then columns, then one final
-    transpose.  The previous 3x3 grid of strided
-    slice+reshape+transpose+concat ops cost ~110 ms/GOP at 720p (the
-    single largest stage of the whole encode pipeline, round-5
-    roofline); this form is ~6 ms, bit-identical."""
+    transpose, instead of a 3x3 grid of strided
+    slice+reshape+transpose+concat ops; bit-identical."""
     F = ref.shape[0]
     W = nh * 16
     refp = jnp.pad(ref, ((0, 0), (16, 16), (16, 16)), mode="edge")
@@ -134,9 +130,9 @@ def _extract_patch(nb, py, px, S):
     """Per-MB SxS patch at per-MB offset (py, px) from the neighborhood
     tensor, as two separable one-hot contractions (the ops/mc_jax.py
     discipline): selection matrices from index comparisons, applied as
-    integer matmuls -- MXU work instead of per-element gathers, and two
-    ops to trace instead of ~2x37 masked shifts (which dominated
-    compile time).
+    integer contractions -- no per-element gathers, and two ops to
+    trace instead of ~2x37 masked shifts (which dominated compile
+    time).
 
     nb: [F, n, 48, 48] u8; py/px: [F, n] int32 in [-16, 32-S].
     Returns [F, n, S, S] u8."""
@@ -177,7 +173,7 @@ def _refine_select(grid, by, bx, mv_max):
     cell (ey, ex) scoring full-pel offset (by+ey-2, bx+ex-2).
 
     Replaces the clipped radius-ordered candidate loop (25 per-candidate
-    one-hot picks, ~17 ms/GOP at 720p) with ONE keyed argmin -- result
+    one-hot picks) with ONE keyed argmin -- result
     identical: a clipped candidate lands on a cell whose own unclipped
     candidate has a strictly earlier radius rank (clipping shrinks |dy|
     or |dx| at equal other component), so clipped duplicates can never
@@ -216,8 +212,7 @@ def _halfpel_select(taps, cur_blk, best_y, best_x):
     candidate's prediction is one of at most two STATIC tap sums --
     diagonals pick between the two by whether sign(my) and sign(mx)
     agree.  13 static SAD passes replace the 81 per-candidate one-hot
-    weight passes of the previous formulation (~25 ms/GOP at 720p,
-    round-5 roofline)."""
+    weight passes of the previous formulation."""
     nd = cur_blk.ndim - 2
     sum_ax = (nd, nd + 1)
 
@@ -265,18 +260,17 @@ def _me_search_impl(cur, ref):
 
     # ---- coarse, half resolution --------------------------------------
     # int16 pyramid: 2x2 sums are <= 1020 so differences fit i16, and
-    # halving the per-step stream cuts the HBM traffic this scan is
-    # bound by (box sums accumulate in i32).
+    # halving the per-step stream halves the memory traffic of each
+    # scan step (box sums accumulate in i32).
     cur2 = _sumpool2(cur).astype(jnp.int16)
     ref2 = _sumpool2(ref).astype(jnp.int16)
     R2 = _COARSE_R + 1
     ref2p = jnp.pad(ref2, ((0, 0), (R2, R2), (R2, R2)), mode="edge")
 
-    # 5 displacements per scan step: the per-step lax.scan overhead was
-    # ~90% of the coarse stage's time (compute per step is ~8.5 us of
-    # HBM traffic against ~160 us measured); candidate ORDER -- and so
-    # every tie-break -- is unchanged, the inner unroll just applies the
-    # same sequential strict-< updates 5 at a time.
+    # 5 displacements per scan step, to cut the per-step lax.scan
+    # overhead; candidate ORDER -- and so every tie-break -- is
+    # unchanged, the inner unroll just applies the same sequential
+    # strict-< updates 5 at a time.
     def coarse_step(carry, ds):
         best_sad, best_d = carry
         for i in range(ds.shape[0]):
@@ -303,9 +297,8 @@ def _me_search_impl(cur, ref):
     # ---- full-pel refine around 2x coarse -----------------------------
     nb = _mb_neighborhoods(ref, nv, nh)
     # Transpose in u8 and materialize (optimization_barrier) BEFORE the
-    # int32 cast: a fused int32 strided transpose re-walked by the ~38
-    # grid/half-pel consumers measured ~120 ms/GOP at 720p by itself
-    # (round-5 roofline bisection); the u8 transpose + barrier is ~2 ms.
+    # int32 cast, so the ~38 grid/half-pel consumers do not each re-walk
+    # a fused int32 strided transpose.
     cur_mb = (
         cur.reshape(F, nv, 16, nh, 16)
         .transpose(0, 1, 3, 2, 4)
@@ -476,8 +469,7 @@ def _block_refine_impl(cur, ref, mv):
     for jy in (0, 1):
         for jx in (0, 1):
             # u8 transpose + barrier before the i32 cast: see the
-            # cur_mb note in _me_search_impl (a fused i32 strided
-            # transpose here measured ~120 ms/GOP at 720p).
+            # cur_mb note in _me_search_impl.
             cur_blk = (
                 cur.reshape(F, nv, 2, 8, nh, 2, 8)[:, :, jy, :, :, jx]
                 .transpose(0, 1, 3, 2, 4)

@@ -1,12 +1,12 @@
-"""JAX/XLA TPU implementations of the codec transforms.
+"""JAX/XLA device implementations of the codec transforms.
 
 Bit-exact integer twins of the numpy ops (idct_np.py, fdct_np.py):
 all arithmetic in int32 with explicit int16 wraparound where the spec has
 int16 stores, so results match the C reference exactly. Batched over all
-fragments of a frame -- the TPU-native replacement for the reference's
+fragments of a frame -- the batched replacement for the reference's
 per-block SIMD kernels (lib/x86/*, lib/arm/*).
 
-These run under jit; the VPU executes the elementwise integer ops and XLA
+These run under jit as elementwise integer ops, and XLA
 fuses the whole transform chain into a handful of kernels.
 """
 from __future__ import annotations
@@ -243,7 +243,7 @@ def quantize_rd(dct_zz, dequant_zz, lam):
 # ---------------------------------------------------------------------------
 # Batched trellis quantizer: the device counterpart of the host Viterbi
 # tokenizer (encode/tokenize.py trellis_plan, a re-derivation of
-# tokenize.c:457-744).  Key TPU reformulation: the reference's DP walks
+# tokenize.c:457-744).  Key reformulation: the reference's DP walks
 # sparse linked node chains per block; here the run transitions are DENSE
 # -- every position considers all 64 run ends at once, with masked costs
 # -- so the whole frame's blocks advance through one 63-step lax.scan of
@@ -532,7 +532,7 @@ def trellis_values(dct_zz, qdct_rtn, dequant_zz, lam, nb_full, acmin):
 
 
 def dequantize_idct(coeffs_zz, dequant_zz, dc, dc_quant, dc_only):
-    """Full reconstruction of residual blocks on TPU.
+    """Full reconstruction of residual blocks on the device.
 
     coeffs_zz: [N, 64] int32 quantized coefficients (zig-zag order,
       DC slot ignored).

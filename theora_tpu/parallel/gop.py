@@ -55,11 +55,13 @@ def make_mesh(
 def _rate_psum(mesh, gop_bits):
     """psum of per-GOP REAL packed bit counts over the whole mesh --
     the CBR rate-control collective (gop_bits: [G] int32, sharded over
-    "gop"; returns the replicated total)."""
+    "gop" and so replicated over "frag"; returns the replicated total).
+    The sum runs over "gop" only: adding the "frag" replicas too would
+    count every GOP once per fragment shard."""
     from jax import shard_map
 
     def f(b):
-        return jax.lax.psum(jax.lax.psum(b.sum(), "gop"), "frag")
+        return jax.lax.psum(b.sum(), "gop")
 
     return shard_map(
         f, mesh=mesh, in_specs=(P("gop"),), out_specs=P()

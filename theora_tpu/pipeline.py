@@ -1,6 +1,6 @@
 """Jitted frame-level compute cores.
 
-These are the TPU entry points: whole-frame batched tensor programs that XLA
+These are the device entry points: whole-frame batched tensor programs that XLA
 compiles once per frame geometry. Host code (entropy coding, DC prediction)
 runs around them; see SURVEY.md section 7 for the split rationale.
 

@@ -77,8 +77,8 @@ def fit(rows, dequant):
     """rows: [N, 7] (qi, pli, qti, satd, bits, ssd, ctx) -- ctx is the
     causal neighborhood context (mean chosen-mode SATD of the left/up
     neighbor fragments), collected for the block-context experiment
-    that closed the mode_rd question (ROUND_NOTES round 4: no held-out
-    predictive gain) and ignored by this fit. Returns
+    that closed the mode_rd question (no held-out predictive gain) and
+    ignored by this fit. Returns
     (logq_anchors [2][2][NLOGQ], rate [2][2][NLOGQ][NBINS],
     rmse [2][2][NLOGQ][NBINS]) with pli collapsed to luma/chroma classes.
     """

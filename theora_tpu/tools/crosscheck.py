@@ -583,7 +583,7 @@ def run_synth_trial(rng, trial, tmp=None):
     saturated MVs, maximal-magnitude coefficients, adversarial qi
     RLEs).  Both decoders must still agree byte-for-byte.  This covers
     the legal-stream space the encoder-driven directions cannot reach
-    (round-3 VERDICT missing #3's no-egress substitute, extended)."""
+    (a substitute for outside test streams, which need a download)."""
     tmp = tmp or _tmp_path("sy")
     from theora_tpu.constants import (
         FRAME_FOR_MODE,

@@ -43,7 +43,7 @@ def main(argv=None):
                          "effort, 1 early skip, 2 fast analysis, 3 plain "
                          "quantizer, 4 no motion compensation")
     ap.add_argument("--device", action="store_true",
-                    help="encode on the TPU device tier (TpuGopEncoder: "
+                    help="encode on the GPU device tier (TpuGopEncoder: "
                          "ME, mode decision, batched trellis and the "
                          "closed loop on device, host entropy coding; "
                          "CBR via the fixed-window controller)")
@@ -142,8 +142,11 @@ def main(argv=None):
     if args.device:
         if args.two_pass and not args.bitrate:
             ap.error("--two-pass requires --bitrate")
+        from theora_tpu import runtime
         from theora_tpu.encode.tpu_gop import TpuGopEncoder
 
+        runtime.setup_compile_cache()
+        runtime.require_gpu()
         denc = TpuGopEncoder(info, qi=args.quality)
         denc.adaptive_quant = {
             "auto": "auto", "on": True, "off": False

@@ -1,6 +1,6 @@
 """Record a JAX profiler trace of the device codec pipeline.
 
-The TPU-tier analogue of the reference's telemetry instrumentation
+The device-tier analogue of the reference's telemetry instrumentation
 (SURVEY.md section 5 tracing plan): the device stages carry
 jax.named_scope labels (mc / fdct / quantize_rd / idct_recon / skip_rd /
 loopfilter / borders, plus the ME stages), so the written trace groups
@@ -9,6 +9,9 @@ Perfetto (ui.perfetto.dev).
 
 Usage: python -m theora_tpu.tools.profile [--mode encode|decode]
            [--out DIR] [--frames N] [--size WxH]
+
+The command needs a GPU; `record` is the same trace on whatever device
+JAX runs on.
 """
 from __future__ import annotations
 
@@ -30,15 +33,28 @@ def _synth_frames(w, h, n):
     return out
 
 
-def main(argv=None):
+def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--mode", choices=("encode", "decode"),
                     default="encode")
-    ap.add_argument("--out", default="/tmp/theora_tpu_trace")
+    ap.add_argument("--out", default="trace")
     ap.add_argument("--frames", type=int, default=8)
     ap.add_argument("--size", default="640x352")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def main(argv=None):
+    from theora_tpu import runtime
+
+    args = parse_args(argv)
+    runtime.setup_compile_cache()
+    runtime.require_gpu()
+    return record(args)
+
+
+def record(args):
+    """Warm up, then trace one encode or decode of synthetic frames into
+    args.out."""
     from theora_tpu.debug import trace
     from theora_tpu.encode.tpu_gop import TpuGopEncoder
     from theora_tpu.info import TheoraInfo

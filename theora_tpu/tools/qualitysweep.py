@@ -2,9 +2,9 @@
 """Full quality sweep: bytes + luma PSNR at equal qi for the reference
 C encoder, the host tier, and the device tier, across content types.
 
-Produces the BASELINE.md device-tier quality table (round-2 VERDICT
-item 10: "device tier RD-beats host" must hold across a q-sweep and
-content sweep, not two operating points).
+Produces the BASELINE.md device-tier quality table: a claim that the
+device tier RD-beats the host must hold across a q-sweep and a content
+sweep, not at two operating points.
 
 Usage: python tools/qualitysweep.py [--qis 16,24,32,40,48,56]
        [--content smooth,textured,noise] [--frames 16] [--json out.json]
